@@ -1,12 +1,12 @@
 // szg_native: the host-engine hot loops, in C++.
 //
 // The reference's native code IS its host engine; the per-frame CPU work that
-// survives into the TPU design is exactly what lives here:
+// survives into the device design is exactly what lives here:
 //   * instance animation tick           (renderer/scene.cpp:463-527)
 //   * TRS -> model matrix snapshot      (geometry/transform.cpp:11-15)
 //   * shadow-bounds AABB over casters   (renderer/scene.cpp:95-148)
-//   * triangle -> tile binning          (feeds the Pallas raster's
-//                                        per-tile compact lists)
+//   * triangle -> tile binning          (exact per-tile triangle lists;
+//                                        not used by the frame path)
 //
 // Exposed as a C ABI consumed via ctypes (syzygy_tpu/native.py); the Python
 // implementations remain as fallbacks and as the executable spec.

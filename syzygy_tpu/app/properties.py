@@ -298,5 +298,5 @@ def apply_config_field(config, name: str, value):
     from syzygy_tpu.renderer.frame import _sky_chunks
 
     if new.render_atmosphere:
-        _sky_chunks(new.padded_height, new.padded_width, new.sky_row_chunks)
+        _sky_chunks(new.padded_height, new.sky_row_chunks)
     return new

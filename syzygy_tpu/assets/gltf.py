@@ -1,4 +1,4 @@
-"""glTF 2.0 / GLB loader (pure Python + PIL; plays fastgltf + stb's role).
+"""glTF 2.0 / GLB loader (pure Python; plays fastgltf + stb's role).
 
 Port of the reference asset path (``assets/assets.cpp``):
 * ``loadGLTFFromPath`` (``:1192-1283``) — parse, upload materials, load meshes
@@ -19,7 +19,6 @@ renders as authored.
 from __future__ import annotations
 
 import base64
-import io
 import json
 import logging
 import os
@@ -208,24 +207,25 @@ class GLTFFile:
         return arr
 
     def image_rgba(self, image_index: int) -> np.ndarray:
-        """Decode an image entry to (H, W, 4) uint8 (stb_image's role)."""
-        from PIL import Image
+        """Decode an image entry to (H, W, 4) uint8 (stb_image's role).
+        PNGs decode with the built-in codec; other formats need Pillow
+        (``utils.png.decode_image``)."""
+        from syzygy_tpu.utils.png import decode_image
 
         img = self.gltf["images"][image_index]
         if "uri" in img:
             uri = img["uri"]
             if uri.startswith("data:"):
                 raw = base64.b64decode(uri.split(",", 1)[1])
-                pil = Image.open(io.BytesIO(raw))
             else:
-                pil = Image.open(os.path.join(self.base_dir, uri))
+                with open(os.path.join(self.base_dir, uri), "rb") as f:
+                    raw = f.read()
         else:
             view = self.gltf["bufferViews"][img["bufferView"]]
             data = self.buffer(view["buffer"])
             start = view.get("byteOffset", 0)
-            raw = data[start : start + view["byteLength"]]
-            pil = Image.open(io.BytesIO(raw))
-        return np.asarray(pil.convert("RGBA"), np.uint8)
+            raw = bytes(data[start : start + view["byteLength"]])
+        return decode_image(raw)
 
 
 def _texture_image_index(gltf: dict, texture_index: int) -> int | None:

@@ -14,7 +14,6 @@ original data.
 
 from __future__ import annotations
 
-import io
 import json
 import struct
 
@@ -34,11 +33,9 @@ def linear_to_srgb(linear: np.ndarray) -> np.ndarray:
 
 
 def _png_bytes(rgba_u8: np.ndarray) -> bytes:
-    from PIL import Image
+    from syzygy_tpu.utils.png import encode_png
 
-    buf = io.BytesIO()
-    Image.fromarray(rgba_u8, "RGBA").save(buf, format="PNG")
-    return buf.getvalue()
+    return encode_png(rgba_u8)
 
 
 def write_glb(

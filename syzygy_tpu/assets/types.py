@@ -1,8 +1,8 @@
 """Host-side asset types: meshes, surfaces, materials, texture library.
 
 Mirrors ``assets/assets.hpp:30-244`` (``Mesh``, ``GeometrySurface``,
-``MaterialData``) and the texture registry half of ``AssetLibrary``. TPU-first
-differences from the Vulkan reference:
+``MaterialData``) and the texture registry half of ``AssetLibrary``.
+Differences from the Vulkan reference (static shapes for XLA):
 
 * Textures keep their native resolutions and are packed into ONE padded
   2D atlas ``(A_h, A_w, 4) float32`` (linear light) with a per-texture rect
@@ -92,7 +92,7 @@ class TextureLibrary:
 
     Replaces the reference's per-image descriptor sets (``assets.cpp:470-575``
     decodes each glTF image at SOURCE resolution with a per-image sRGB/UNORM
-    choice). TPU-first shape discipline: at pack time every texture is placed
+    choice). Static-shape discipline: at pack time every texture is placed
     into ONE padded 2D atlas (:meth:`as_atlas`) so per-pixel sampling stays a
     static-shape gather; each texture keeps its own resolution and REPEAT
     wrapping via a per-texture rect table.
@@ -177,8 +177,8 @@ class TextureLibrary:
 
         Returns (atlas (A_h, A_w, 4) f32, rects (N, 4) i32 [x0, y0, w, h]).
         Shelf packing by descending height; atlas width is the smallest
-        power of two >= the widest texture (min 128 for VPU lane alignment),
-        height padded to a multiple of 8 (f32 sublane tile).
+        power of two >= the widest texture (min 128), height padded to a
+        multiple of 8.
         """
         if not self._textures:
             atlas = np.zeros((8, 128, 4), np.float32)
@@ -261,8 +261,8 @@ def quad_pack_atlas(atlas: np.ndarray, rects: np.ndarray) -> np.ndarray:
     """(A_h, A_w, 4) atlas -> (A_h, A_w, 16): each texel carries its 2x2
     bilinear footprint [t00, t10, t01, t11] with REPEAT wrapping INSIDE the
     owning rect baked in — a bilinear sample becomes ONE 64-byte gather
-    (same trick as kernels.atmosphere.PackedLUT; measured ~8-13x per
-    sample on this TPU). ``rects`` may be (N, 4) or (N, L, 4)."""
+    (same trick as kernels.atmosphere.PackedLUT). ``rects`` may be (N, 4)
+    or (N, L, 4)."""
     h, w = atlas.shape[:2]
     x1 = np.arange(w, dtype=np.int64) + 1  # default clamp; rects overwrite
     y1 = np.arange(h, dtype=np.int64) + 1
@@ -317,8 +317,7 @@ def joint_pack_atlas(
 
     When a material's color/normal/orm textures share (w, h), their three
     bilinear samples hit the SAME within-rect texel — so the three
-    quad-packed gathers can be one 48-channel gather (gathers are
-    row-count-bound on this TPU, not width-bound: tools/gather_bench.py).
+    quad-packed gathers can be one 48-channel gather.
     Texel values are copied from the quad-packed atlas, so the per-rect
     REPEAT wrap baked by :func:`quad_pack_atlas` is preserved and sampling
     the joint atlas is bitwise-identical to three separate samples.

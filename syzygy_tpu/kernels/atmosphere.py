@@ -115,9 +115,8 @@ class PackedLUT:
 
     ``quad[y * w + x] = [t(y,x), t(y,x1), t(y1,x), t(y1,x1)]`` (12 channels,
     x1/y1 edge-clamped). A bilinear sample then costs ONE 48-byte contiguous
-    gather instead of four texel gathers — measured 42 -> 5 ns/sample on
-    this TPU (tools/gather_bench.py g1 vs g6) with bitwise-identical
-    results. ``h``/``w`` ride as pytree aux data so they stay static."""
+    gather instead of four texel gathers, with bitwise-identical results.
+    ``h``/``w`` ride as pytree aux data so they stay static."""
 
     def __init__(self, quad: jnp.ndarray, h: int, w: int):
         self.quad = quad  # (h * w, 12) f32
@@ -137,10 +136,9 @@ def pack_lut(lut: jnp.ndarray, dtype=None) -> PackedLUT:
     C is 3 for plain LUTs; 6 for the skyview+t_seg extended layout.
 
     ``dtype`` optionally narrows the stored quad (e.g. ``jnp.float16`` for
-    the 100 MB skyview quad — the big-table gather tier is bytes-bound:
-    2M-row 12ch gathers cost 47.5 ms f32 vs 33.9 ms f16 per 2M samples,
-    tools/gather_width_probe2.py). Samples are widened back to f32 after
-    the gather, so only storage precision changes (~5e-4 relative)."""
+    the 100 MB skyview quad: half the bytes per gather). Samples are
+    widened back to f32 after the gather, so only storage precision
+    changes (~5e-4 relative)."""
     h, w = lut.shape[0], lut.shape[1]
     xr = jnp.minimum(jnp.arange(w) + 1, w - 1)
     yd = jnp.minimum(jnp.arange(h) + 1, h - 1)
@@ -518,8 +516,7 @@ def luminance_scattering_integral_fast(
     x10 display scaling), see tests/test_atmosphere.py::test_fast_integral.
     Opt-in speed mode (``RenderConfig.fast_sky``), off by default.
 
-    Per-pixel cost drops from 5 bilinear LUT gathers per step to 1 (the
-    gathers dominate: ~42 ns each on this TPU, tools/gather_bench.py).
+    Per-pixel cost drops from 5 bilinear LUT gathers per step to 1.
     """
     scattering_dir = -direction / _norm(direction)
     radius = _norm(origin)[..., 0]

@@ -1,13 +1,8 @@
-"""Shared kernel helpers: interpret-mode selection, tiling math."""
+"""Shared kernel helpers: tiling math and shard_map vma propagation."""
 
 from __future__ import annotations
 
 import jax
-
-
-def use_interpret() -> bool:
-    """Pallas kernels run interpreted off-TPU (CPU test mesh, debugging)."""
-    return jax.default_backend() != "tpu"
 
 
 def round_up(n: int, m: int) -> int:
@@ -28,7 +23,7 @@ def match_vma(init, *like):
     over the mesh axes — shard_map's vma checker rejects the carry type
     mismatch at trace time. ``pcast(..., to='varying')`` is metadata-only
     (no collective) and a no-op when the needed set is empty, so calling
-    this outside shard_map costs nothing (VERDICT r3 #7)."""
+    this outside shard_map costs nothing."""
     target: frozenset = frozenset()
     for x in like:
         for leaf in jax.tree.leaves(x):

@@ -6,7 +6,7 @@ Port of ``DebugLineGraphicsPipeline`` (``renderer/pipelines.cpp:382-591``) +
 camera, drawn constant green with a depth test against the scene depth buffer
 (the reference renders into the depth-tested scene target).
 
-TPU-native line raster: each line segment becomes a capsule test evaluated
+Software line raster: each line segment becomes a capsule test evaluated
 over the pixel grid in jnp — segments are few (boxes for scene bounds /
 instance AABBs), so a vectorized segments x pixels pass beats a scatter.
 """

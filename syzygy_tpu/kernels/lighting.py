@@ -138,15 +138,14 @@ def sample_shadow_map(
     du <= 1.5/size — ``compute_shadow_frame`` guarantees dx, dy <= 1, so
     the window bound is exact over the valid domain). Each pixel then
     fetches 5 segments (one per tap row)
-    instead of 25 single texels — gathers are the TPU bottleneck
-    (tools/gather_bench.py g5) — and extracts tap results from a per-row
-    compare bitmask (see inline comment). Values, masks and compares are
+    instead of 25 single texels, and extracts tap results with a select
+    tree (see inline comment). Values, masks and compares are
     bitwise-identical to the per-texel formulation (tests/test_lighting.py).
 
     Maps above 2048^2 use the direct per-texel form instead: the segment
-    table costs 16 x dim^2 floats (2.2 GB per light at 4096^2 — measured
-    to crash the platform compiler and OOM at 8192^2), while 25 single
-    gathers need no side table. Identical results either way.
+    table costs 16 x dim^2 floats (2.2 GB per light at 4096^2, 36 GB at
+    8192^2), while 25 single gathers need no side table. Identical
+    results either way.
 
     ``f16=True`` stores the segment table in float16 (occluder depths
     round to ~5e-4 relative before the reverse-Z compare; taps whose
@@ -158,10 +157,8 @@ def sample_shadow_map(
     segment: 16 u8 taps relative to the segment's own [min, max] depth
     range packed into 4 uint32 words, plus the f16 min/step pair packed
     into a 5th word — 20 bytes/row vs f16's 32 on the frame's hottest
-    tables (the PCF rows are 15 of its ~21 gathers/px, measured
-    bytes-bound: tools/pcf_f16_ab.py). All byte extraction is by CONSTANT
-    shifts (the catastrophic per-lane variable shifts of the bitmask
-    experiment do not apply); the select tree runs 2 levels on uint32
+    tables (the PCF rows are 15 of its ~21 gathers/px). All byte
+    extraction is by CONSTANT shifts; the select tree runs 2 levels on uint32
     words + 2 levels on extracted bytes. Error per tap <= segment depth
     range / 510 (+ f16 rounding of min/step): exactly 0-valued texels
     (map border / never-written) decode to exactly 0, so the
@@ -171,22 +168,16 @@ def sample_shadow_map(
 
     ``window2d=True`` (ignored under ``q8``) swaps the five per-tap-row
     segment gathers for ONE 128-channel gather of an 8-row x 16-col 2D
-    window table (see ``_pcf_window2d``). Bitwise-identical taps — and a
-    MEASURED LOSS both ways it can be built (tools/pcf_window2d_probe.py
-    r9 standalone: 118.0 vs 84.5 ms/eval at 1080p/f16 — PCF gathers are
-    fetched-BYTES-bound, so one 256 B row loses to five 32 B rows; the
-    in-frame slice-stacked table build also stalled the platform
-    compiler >40 min). Kept as the negative-result record; default off.
+    window table (see ``_pcf_window2d``). Bitwise-identical taps; one
+    256 B row replaces five 32 B rows. Default off; not measured on the
+    H100.
 
     ``seg8=True`` (ignored under ``q8``/``bitmask``) narrows the row
     segments 16 -> 8 channels at stride 2: same five gathers but HALF
     the fetched bytes (5 x 16 B f16) and a 3-level column tree, at a 2x
     side table (stride-2 windows duplicate each texel 4x). Bitwise-
-    identical taps (tests/test_lighting.py::test_pcf_seg8_bitwise) — and
-    ALSO a measured loss (124.7 vs 83.7 ms/eval, same probe session as
-    window2d's 117.8): halving fetched bytes does not pay for doubling
-    the touched table. The three points bracket the default
-    16ch/stride-8 layout as a local optimum of the gather-shape space."""
+    identical taps (tests/test_lighting.py::test_pcf_seg8_bitwise).
+    Default off; not measured on the H100."""
     size = shadow_map.shape[-1]
     if size > _PCF_WINDOW_MAX_DIM:
         return _sample_shadow_map_naive(shadow_map, coord, dx, dy)
@@ -222,14 +213,11 @@ def sample_shadow_map(
     w = jnp.clip(jnp.floor_divide(start, 8), 0, n_w - 1)
 
     if bitmask:
-        # Bitmask tap extraction (MEASURED LOSS — kept as a documented
-        # negative result): compare ALL 16 window channels once per row,
-        # pack the booleans into an int32 bitmask, extract each tap's bit
-        # with a variable right-shift. Bitwise-identical to the select
+        # Bitmask tap extraction: compare ALL 16 window channels once per
+        # row, pack the booleans into an int32 bitmask, extract each tap's
+        # bit with a variable right-shift. Bitwise-identical to the select
         # tree (test_pcf_bitmask_matches_select_tree) and ~40% less
-        # arithmetic on paper, but per-lane VARIABLE shift amounts lower
-        # catastrophically on this TPU: 388 vs 222 ms/frame, +55 ms per
-        # PCF evaluation (tools/pcf_ab.py BABA, one session). Default off.
+        # arithmetic on paper. Default off; not measured on the H100.
         bit_weights = (1 << jnp.arange(16, dtype=jnp.int32)).astype(
             jnp.float32
         )
@@ -271,9 +259,9 @@ def sample_shadow_map(
 
 
 def _select16(row, c):
-    """row[..., c] via a 4-level binary select tree (~2x cheaper than a
-    16-wide one-hot dot; tools/light_probe.py puts the selects at ~55 ms
-    per 3 lights). Out-of-range c picks an arbitrary finite channel —
+    """row[..., c] via a 4-level binary select tree (a quarter of the
+    selects of a 16-wide one-hot). Out-of-range c picks an arbitrary
+    finite channel —
     such taps are outside the map and masked by the caller's `inside`."""
     r = jnp.where((c & 8)[..., None] != 0, row[..., 8:], row[..., :8])
     r = jnp.where((c & 4)[..., None] != 0, r[..., 4:], r[..., :4])
@@ -300,9 +288,9 @@ def _pcf_window2d(shadow_map, size, frag_depth, u, v, du, dv, f16):
     taps are BITWISE-identical to the 1D-segment path
     (tests/test_lighting.py::test_pcf_window2d_bitwise).
 
-    Trade measured by tools/pcf_window2d_ab.py: gather count 5 -> 1
-    per pixel, fetched bytes 160 -> 256 f16, side table 4.3 -> 17 MB
-    at 1024^2 (stride 2 duplicates each texel 4x vs the 1D layout's 2x).
+    Trade: gather count 5 -> 1 per pixel, fetched bytes 160 -> 256 f16,
+    side table 4.3 -> 17 MB at 1024^2 (stride 2 duplicates each texel 4x
+    vs the 1D layout's 2x).
     """
     pad = _PCF_PAD
     pad_y = _PCF_PAD_Y
@@ -315,12 +303,8 @@ def _pcf_window2d(shadow_map, size, frag_depth, u, v, du, dv, f16):
     # Channel layout: flat 128 = window-row j (0..7) * 16 + column c
     # (0..15). Built from 128 STRIDED SLICES (channel (j, c) over the
     # (n_h, n_w) window grid is exactly padded[j::2, c::8]) — pure
-    # slice+stack, no gather, so it hoists/fuses trivially. The first
-    # formulation built this with a 2-axis advanced-index gather and
-    # kept per-pixel (..., 8, 16) tensors, whose 16-wide trailing dim
-    # wastes 7/8 of every VPU lane tile — measured ELEVEN TIMES slower
-    # end-to-end (1595 vs 142 ms/frame, tools/pcf_window2d_ab.py r9);
-    # all per-pixel shapes here keep flat 128/64/32/16 trailing dims.
+    # slice+stack, no gather, so it hoists/fuses trivially. All
+    # per-pixel shapes keep flat 128/64/32/16 trailing dims.
     blocks = jnp.stack(
         [
             padded[j : j + 2 * n_h : 2, c : c + 8 * n_w : 8]
@@ -422,8 +406,8 @@ def _pcf_q8(windows, size, n_w, pad, frag_depth, u, v, du, dv) -> jnp.ndarray:
     Row layout (5 uint32 = 20 B): words[0..3] hold the 16 taps as u8
     fractions of the segment's own [min, max] depth range (tap j lives in
     word j>>2, byte j&3); word 4 packs the f16 min (low half) and f16
-    step = range/255 (high half). Quantization runs on device per frame —
-    elementwise VPU work, free at this scale (tools/layout_probe.py)."""
+    step = range/255 (high half). Quantization runs on device per frame
+    (elementwise work)."""
     lo = jnp.min(windows, axis=-1, keepdims=True)
     hi = jnp.max(windows, axis=-1, keepdims=True)
     # quantize against the f16-ROUNDED decode params so the u8 grid and
@@ -545,8 +529,8 @@ def deferred_lighting(
     # caller and shared with the sky pass (kernels/sky.py samples the
     # identical frame). When set, light 0's contribution is accumulated
     # OUTSIDE the directional loop from this buffer (a cond-in-loop
-    # formulation measured SLOWER — the compiler flattens it to a select
-    # that still samples) — identical math, minus one full 5-row PCF
+    # formulation can be flattened to a select that still samples) —
+    # identical math, minus one full 5-row PCF
     # (differences are XLA reassociation noise; see
     # RenderConfig.share_sun_pcf).
     sun_shadow=None,
@@ -577,8 +561,8 @@ def deferred_lighting(
     exactly (tests/test_lighting.py::test_shadowless_eps_keeps_night_moon_
     shadowed). Deviation is bounded by the skipped light's intensity in
     its occluded pixels, which daylight keeps off the OETF's steep dark
-    segment (closeness-pinned by test_shadowless_eps_frame_close +
-    tools/shadowless_probe.py); 0.0 (default) is exact. Spot lights are
+    segment (closeness-pinned by test_shadowless_eps_frame_close);
+    0.0 is exact. Spot lights are
     never gated (local falloff; no daylight notion).
     """
     material = convert_pbr(gbuffer)
@@ -594,12 +578,10 @@ def deferred_lighting(
         jnp.zeros((h, w, 3), jnp.float32), gbuffer, shadow_maps, directional
     )
 
-    # Dynamic-trip-count loops so only ACTIVE lights execute. lax.cond per
-    # static slot (the earlier structure) gets flattened to select by the
-    # TPU compiler — all 16 spot slots then run their 5x5 PCF every frame
-    # (measured 10.5 s/frame at 1080p for a 3-light scene; ~0.6 s per
-    # light-slot). A fori_loop with traced bounds lowers to while_loop and
-    # executes exactly `count` iterations.
+    # Dynamic-trip-count loops so only ACTIVE lights execute: a lax.cond
+    # per static slot may be flattened to a select that runs every slot's
+    # 5x5 PCF, while a fori_loop with traced bounds lowers to while_loop
+    # and executes exactly `count` iterations.
     n_dir = directional.strength.shape[0]
 
     if shadowless_eps > 0.0:
@@ -618,12 +600,10 @@ def deferred_lighting(
     else:
         shadowless_cut = None
 
-    # NO lax.cond around PCF work anywhere below: the TPU compiler can
-    # flatten a cond whose branches are same-shaped into a select that
-    # executes BOTH sides, silently un-doing the skip (measured: a
-    # cond(i == 0, reuse_hoisted, sample) formulation was 12 ms/frame
-    # SLOWER than no sharing at all — tools/share_pcf_ab.py). Every skip
-    # is therefore structural: the hoisted sun is accumulated OUTSIDE the
+    # NO lax.cond around PCF work anywhere below: a compiler may flatten a
+    # cond whose branches are same-shaped into a select that executes
+    # BOTH sides, silently un-doing the skip. Every skip is therefore
+    # structural: the hoisted sun is accumulated OUTSIDE the
     # loop, and shadowed vs shadowless lights run in two separate
     # compacted loops whose bodies contain no sampling alternative.
     def dir_pcf(i):

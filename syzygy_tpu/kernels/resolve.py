@@ -1,6 +1,6 @@
 """G-buffer resolve: visibility buffer -> shaded attribute planes.
 
-The TPU half of the reference's G-buffer fragment work
+The software half of the reference's G-buffer fragment work
 (``shaders/deferred/offscreen.vert`` + ``offscreen.frag``): where Vulkan
 interpolates attributes per fragment in hardware, here a vectorized jnp pass
 gathers per-pixel triangle attributes through the visibility buffer's tri id,
@@ -313,8 +313,7 @@ def build_resolve_records(
     separate (H, W)-row gathers per pixel (orig tri id, corner bary, corner
     w, vertex indices, 3 attribute fetches, material id, rect rows), join
     everything into one record per clipped-triangle slot at setup time so
-    the pixel pass does ONE wide gather (gathers are the TPU bottleneck,
-    ~0.2 G rows/s — tools/gather_bench.py). Corner attributes are
+    the pixel pass does ONE wide gather. Corner attributes are
     pre-mapped through the clip-corner barycentrics, so pixel interpolation
     uses the raster triangle's perspective weights directly (algebraically
     identical to interpolating original-corner attributes; float order

@@ -209,7 +209,7 @@ def compute_skyview_tseg(atmo, transmittance_lut, position, height: int):
     frame) — exactly the skyview LUT's v axis, whose horizon-centered sqrt
     warp (``skyview_LUT.comp:51-89``) concentrates rows where t_seg varies
     fastest. Packed via :func:`pack_tseg_rows` into a tiny (h, 6) table,
-    one cheap-tier gather replaces the env branch's two per-pixel
+    one small-table gather replaces the env branch's two per-pixel
     transmittance-segment gathers (RenderConfig.skyview_tseg; the exact
     per-pixel path remains the skyview_tseg=False mode). Rows above the
     horizon (no planet hit) hold 1.0 and are never selected."""
@@ -241,9 +241,8 @@ def compute_skyview_tseg(atmo, transmittance_lut, position, height: int):
 def pack_tseg_rows(rows: jnp.ndarray) -> jnp.ndarray:
     """(h, 3) :func:`compute_skyview_tseg` rows -> (h, 6) packed pairs
     ``[t(y), t(y+1)]`` (edge-clamped), so a v-interpolated sample is ONE
-    cheap-tier gather (the table is a few KB — tools/gather_width_probe2.py
-    puts <=16k-row tables at ~8 ms per 2M samples vs ~7.5 ms per
-    transmittance-LUT gather it replaces, x2)."""
+    gather from a table of a few KB (it replaces two transmittance-LUT
+    gathers)."""
     h = rows.shape[0]
     yd = jnp.minimum(jnp.arange(h) + 1, h - 1)
     return jnp.concatenate([rows, rows[yd]], axis=-1)
@@ -280,10 +279,9 @@ def sample_environment_shared(
     ``tseg_rows`` (a :func:`pack_tseg_rows` table over the skyview v axis)
     replaces the ground branch's 2-gather per-pixel transmittance segment
     sample with ONE tiny-table gather — 3 gathers total. Closeness-bounded,
-    not bitwise (tests/test_sky.py::test_skyview_tseg_frame_close). An
-    earlier variant rode these rows as 3 extra skyview-quad channels;
-    widening the 100 MB bytes-bound quad measured as a net frame LOSS
-    (258.6 vs 254.8 ms, tools/tseg_ab.py), hence the separate table."""
+    not bitwise (tests/test_sky.py::test_skyview_tseg_frame_close). A
+    separate table keeps the 100 MB skyview quad at 12 channels instead of
+    widening every one of its rows."""
     hit, dist = _hit_planet(atmo, position, direction)
     surface = position + dist[..., None] * direction
 
@@ -635,8 +633,8 @@ def sky_camera_pass(
     # the lighting pass evaluates the IDENTICAL sample_shadow_map(
     # compute_shadow_frame(sun_pv, material.position, material.normal))
     # for directional light 0, so the frame can compute it once and pass
-    # it here — the pass's 5-row PCF gathers + select trees (~40 ms at
-    # 1080p) drop out (identical math; differences are XLA reassociation
+    # it here — the pass's 5-row PCF gathers + select trees drop out
+    # (identical math; differences are XLA reassociation
     # noise — see RenderConfig.share_sun_pcf). None = compute locally.
     sun_shadow=None,
 ) -> jnp.ndarray:

@@ -67,7 +67,7 @@ def sparse_push(
 ) -> jnp.ndarray:
     """``sparse_push_constant.comp``: the gradient again, exercising the
     reference's sparse push-constant layout (same output as gradient_color —
-    the layout trick has no TPU analog; the pass exists for ladder parity)."""
+    the layout trick has no JAX analog; the pass exists for ladder parity)."""
     return gradient_color(width, height, top_color, bottom_color)
 
 

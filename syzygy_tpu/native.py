@@ -1,8 +1,8 @@
 """ctypes bindings for the C++ host-engine core (native/szg_native.cpp).
 
-The library is built on demand with g++ (no pybind11 in this environment);
-every entry point has a numpy fallback so the package works without a
-toolchain. The C++ path matters at scale: ticking/bounding thousands of
+The library is built from ``native/szg_native.cpp`` with ``make`` on first
+use, into ``native/build/`` (not committed); every entry point has a numpy
+fallback so the package works without a toolchain. The C++ path matters at scale: ticking/bounding thousands of
 instances or exact-binning hundreds of thousands of triangles is a tight
 loop the interpreter cannot afford per frame.
 """
@@ -27,15 +27,19 @@ _tried = False
 
 
 def _build() -> bool:
+    # build under a private name, then rename: concurrent first uses
+    # (parallel test workers) never load a half-written library
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["make", "-s", "build/libszg_native.so"],
+            ["make", "-s", f"OUT={tmp}"],
             cwd=_NATIVE_DIR,
             check=True,
             capture_output=True,
         )
+        os.replace(tmp, _LIB_PATH)
         return True
-    except (subprocess.CalledProcessError, FileNotFoundError) as e:
+    except (subprocess.CalledProcessError, FileNotFoundError, OSError) as e:
         log.debug("native build failed: %s", e)
         return False
 

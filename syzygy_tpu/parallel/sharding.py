@@ -1,37 +1,30 @@
-"""Multi-chip rendering: image-space + frame-batch sharding over a device mesh.
+"""Multi-device rendering: image-space + frame-batch sharding over a mesh.
 
-The reference is single-GPU (SURVEY.md §2c); the natural TPU scaling axes for
-a renderer are:
+The reference is single-GPU (SURVEY.md §2c); the natural scaling axes for a
+renderer are:
 
 * ``sp`` (spatial): shard the pixel grid's row-tiles across devices. Every
   per-pixel pass (raster, resolve, lighting, sky) is local to its rows; only
-  the final image gather crosses chips — it rides ICI via the output sharding,
-  no explicit collectives needed. Scene state and geometry are replicated
-  (a few MB; broadcast once). The camera setup's O(T) slot math and the
-  shadow-map lights ALSO partition over ``sp`` (rejoined via ``all_gather``)
-  so triangle-heavy scenes don't replicate their setup per device.
+  the final image gather crosses devices — it follows from the output
+  sharding, no explicit collectives needed. Scene state and geometry are
+  replicated (a few MB; broadcast once). The camera setup's O(T) slot math
+  and the shadow-map lights ALSO partition over ``sp`` (rejoined via
+  ``all_gather``) so triangle-heavy scenes don't replicate their setup per
+  device.
 * ``dp`` (data/frame): independent frames (cameras/time steps) across devices,
   e.g. offline animation or multi-view rendering.
 
-Atmosphere LUTs are recomputed per device rather than sharded and gathered —
-they are small next to the per-pixel work (~3 ms), and recompute avoids an
-ICI round-trip on the frame critical path.
-
-Measured overhead (tools/r5{,b,c,d}_session.py, one day): the sharded path
-at (dp=1, sp=1) is a WASH vs the staged single-chip path (default 119.5 vs
-119.5 ms/frame; dense +1.4 ms) with BITWISE-identical output (the raster
-kernels evaluate global pixel coordinates — docs/BENCHMARKS.md round-11
-items 9-10). Two early pitfalls are permanently encoded here: (1) NEVER vmap the per-device frame batch — it
-cost 1.9x on the default scene and 15.6x on the dense field (batched
-lax.cond runs both branches; batch dims wreck hot gather layouts) — see
-:func:`_map_frames`; (2) the frame runs as TWO chained shard_map programs
-(geometry, then lighting+sky) matching the single-chip chaining — measured
-equal in rate to the one-program form once vmap was gone, but it compiles
-~2x faster and keeps the single-chip program structure. The one-program
-formulation stays under ``SHARDED_SPLIT_PROGRAMS=False`` for the
-vma-checked CI trace, which cannot express the split path's
-replicated-boundary out_specs (all_gather results are conservatively
-sp-varying to the vma checker).
+Atmosphere LUTs are recomputed per device rather than sharded and gathered:
+they are small next to the per-pixel work, and recompute avoids a
+collective on the frame critical path. The raster evaluates global pixel
+coordinates, so sharded output without atmosphere is BITWISE equal to the
+single-device frame. The per-device frame batch is never vmapped (see
+:func:`_map_frames`), and the frame runs as TWO chained shard_map programs
+(geometry, then lighting+sky) matching the single-device chaining. The
+one-program formulation stays under ``SHARDED_SPLIT_PROGRAMS=False``: it is
+the one the vma checker can trace (the split path's replicated-boundary
+out_specs cannot be proven, because all_gather results are conservatively
+sp-varying to the checker).
 """
 
 from __future__ import annotations
@@ -52,20 +45,8 @@ from syzygy_tpu.renderer.frame import (
 from syzygy_tpu.scene.pack import FrameParams, GeometryStatic
 
 
-# shard_map vma checking. The frame graph is fully annotated (raster out
-# vma, match_vma'd loop carries) but JAX cannot yet check vma through the
-# listed raster's scalar-prefetch index_map, and the listed raster is the
-# production path — so the default stays False. CI flips this with the
-# listed raster disabled to get trace-time spec checking of everything
-# else (tests/test_frame.py::test_sharded_vma_checked). vma checking also
-# requires the ONE-program formulation: the split path's stage boundary
-# declares state/records/shadow maps replicated over sp (true — but they
-# derive from all_gather, whose output the checker keeps sp-varying).
-CHECK_VMA = False
-
-# Two chained programs (production: matches single-chip partitioning,
-# compiles ~2x faster) vs one fused program (vma-checkable; same measured
-# rate — see module docstring).
+# Two chained programs (production: matches single-device partitioning)
+# vs one fused program (vma-checkable — see module docstring).
 SHARDED_SPLIT_PROGRAMS = True
 
 
@@ -82,15 +63,13 @@ def make_mesh(dp: int = 1, sp: int = 1, devices=None) -> Mesh:
 def _map_frames(one, args_tree):
     """Apply ``one`` over the leading frame-batch axis WITHOUT vmap.
 
-    vmap is the wrong tool for the per-device frame batch (measured,
-    tools/r5b_session.py sp=1): a batched ``lax.cond`` predicate lowers to
-    select-and-execute-BOTH-branches, so the listed raster's lossless
-    overflow fallback ran the catastrophic full-iteration raster on every
-    dense frame (3531 vs 227 ms — the landmine-14 pathology), and the
-    batch dim on every hot per-pixel tensor perturbs gather layouts
-    (landmine 15 class). B == 1 (the common case: dp shards frames)
-    calls straight through; B > 1 uses ``lax.map`` — a scan whose body
-    stays UNBATCHED, keeping conds structural and layouts flat."""
+    vmap is the wrong tool for the per-device frame batch: a batched
+    ``lax.cond`` predicate lowers to select-and-execute-BOTH-branches (the
+    shadow pass's active-light loop and skips would run for every light),
+    and the batch dim lands on every per-pixel tensor. B == 1 (the common
+    case: dp shards frames) calls straight through; B > 1 uses
+    ``lax.map`` — a scan whose body stays UNBATCHED, keeping conds
+    structural and layouts flat."""
     b = jax.tree.leaves(args_tree)[0].shape[0]
     if b == 1:
         out = one(jax.tree.map(lambda x: x[0], args_tree))
@@ -106,10 +85,10 @@ def _local_rows(config: RenderConfig, sp: int) -> int:
     # combination shards: each device renders an equal whole-tile row block,
     # and rows beyond the real framebuffer are off-screen (no geometry
     # coverage, sky rays below the frustum) and cropped away after the
-    # gather. At 1920x1080 (padded_height 1088 = 17 tiles) this costs
-    # 1 / 3 / 7 junk tile-rows at sp=2/4/8 — bounded waste, against which the
-    # alternative (refusing non-divisible shapes) made the production shape
-    # un-shardable (VERDICT r3 weak #2).
+    # gather. At 1920x1080 (padded_height 1088 = 68 tile rows) this costs
+    # 0 / 0 / 4 junk tile rows at sp=2/4/8 — bounded waste, against which
+    # the alternative (refusing non-divisible shapes) would leave the
+    # production shape un-shardable at sp=8.
     return round_up(config.padded_height, sp * TILE_H) // sp
 
 
@@ -213,8 +192,7 @@ def _render_frames_sharded_mono(
     config: RenderConfig,
     mesh: Mesh,
 ) -> jnp.ndarray:
-    """One-program formulation (pre-r5; vma-checkable; measured 1.9x slower
-    than the split at sp=1 — module docstring)."""
+    """One-program formulation (vma-checkable — module docstring)."""
     sp = mesh.shape["sp"]
     rows = _local_rows(config, sp)
 
@@ -237,18 +215,13 @@ def _render_frames_sharded_mono(
         mesh=mesh,
         in_specs=(P(), P("dp")),
         out_specs=P("dp", "sp", None, None),
-        # Trace-time spec checking (VERDICT r3 #7): the raster pallas_call
-        # out_shapes carry `vma` (kernels/raster.py::_out_vma propagates the
-        # union of the inputs' varying axes) and every loop carry that
-        # starts from zeros/ones is pcast up via kernels.common.match_vma,
-        # so the vma checker passes through the WHOLE frame graph except
-        # one JAX limitation: the listed raster's scalar-prefetch index_map
-        # (see kernels/raster.py::_coeff_index — ref-get discharge is not
-        # vma-aware). check_vma therefore defaults to the module flag below
-        # (False); tests/test_frame.py::test_sharded_vma_checked flips it
-        # and traces the full production shape with the listed raster off,
-        # so spec errors in everything else ARE caught at trace time in CI.
-        check_vma=CHECK_VMA,
+        # Trace-time spec checking: the raster pallas_call out_shapes carry
+        # `vma` (kernels/raster.py::_out_vma propagates the union of the
+        # inputs' varying axes) and every loop carry that starts from
+        # zeros/ones is pcast up via kernels.common.match_vma, so the whole
+        # frame graph type-checks (tests/test_frame.py::
+        # test_sharded_vma_checked traces the 1080p shape this way).
+        check_vma=True,
     )
     out = fn(geometry, params_batch)  # (B, h_pad, w_pad, 3)
     return out[:, : config.height, : config.width]

@@ -1,6 +1,6 @@
 """Scene -> device arrays, split host-cheap / device-jit.
 
-The TPU replacement for the reference's staged-buffer uploads
+The replacement for the reference's staged-buffer uploads
 (``renderer/renderer.cpp:302-366``), designed so the per-frame host path is
 numpy-only (microseconds):
 
@@ -8,13 +8,13 @@ numpy-only (microseconds):
   materials, textures. Rebuilt only on scene-graph edits. Vertices are
   replicated per instance (instancing becomes a gather of the per-instance
   model matrix, ``deferred/offscreen.vert:43-51``); counts are padded to
-  VPU-friendly multiples with validity masks.
+  chunk multiples with validity masks.
 * :func:`pack_frame_params` -> :class:`FrameParams` — tiny raw numpy arrays:
   instance TRS (post-animation), camera scalars, sun angles, light params,
   shadow bounds. No jnp calls.
 * :func:`prepare_frame_state` -> :class:`FrameState` — runs INSIDE the jitted
   frame: builds model matrices, camera pack, sun/moon bake, spot lights on
-  device. Matrix math rides the MXU; the host never blocks on it.
+  device; the host never blocks on it.
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ class GeometryStatic(NamedTuple):
     materials: jnp.ndarray  # (M, 3) i32: color/normal/orm texture ids
     # native-resolution texture atlas (assets/types.py::TextureLibrary):
     # (A_h, A_w, 16) f32 quad-packed by default — each texel carries its
-    # 2x2 bilinear footprint so a sample is ONE gather (4x the HBM of the
+    # 2x2 bilinear footprint so a sample is ONE gather (4x the memory of the
     # plain layout; pack_geometry(quad_pack=False) keeps (A_h, A_w, 4))
     tex_atlas: jnp.ndarray  # linear light
     tex_rects: jnp.ndarray  # (N, 4) i32 [x0, y0, w, h] per texture
@@ -160,8 +160,8 @@ def _morton3(x: np.ndarray, y: np.ndarray, z: np.ndarray) -> np.ndarray:
 def _morton_order(centroids: np.ndarray) -> np.ndarray:
     """Spatial sort keys for triangle records (world-space approx).
 
-    The raster's compact tile lists work at CHUNK granularity with a bbox
-    union per chunk (kernels/raster.py); triangles that are adjacent in
+    The raster bins triangles at CHUNK granularity with a bbox union per
+    chunk (kernels/raster.py); triangles that are adjacent in
     submission order should be adjacent in space or every chunk smears over
     many tiles. Mesh-internal index order is usually local, but a scene of
     many instances interleaves them; one stable Morton sort at pack time
@@ -201,7 +201,8 @@ def pack_geometry(
 
     ``quad_pack`` stores each atlas texel's 2x2 bilinear footprint as 16
     channels so a texture sample is ONE gather; disable for
-    memory-constrained atlases (4x HBM on the largest asset buffer) —
+    memory-constrained atlases (4x the memory of the largest asset
+    buffer) —
     sampling falls back to 4 texel gathers, identical results.
 
     ``joint_pack`` additionally builds a per-material 48-channel joint
@@ -212,10 +213,8 @@ def pack_geometry(
     in float16; the resolve widens gathered texels to f32 before bilinear
     filtering. Texels are 8-bit-sourced (f16's ~5e-4 relative rounding
     sits below the 2e-3 quantization already present in linear light),
-    and it halves the bytes through the resolve's dominant gather on
-    large-atlas scenes: chess flagship 224 -> 219 ms/frame
-    (tools/atlas_f16_ab.py BABA, one session) and half the atlas HBM.
-    Closeness pinned by tests/test_resolve.py::test_atlas_f16_frame
+    and it halves the bytes through the resolve's dominant gather and the
+    atlas memory. Closeness pinned by tests/test_resolve.py::test_atlas_f16_frame
     _close; False = exact f32 storage.
 
     ``joint_pack_pad`` (OPT-IN, off by default) extends this to
@@ -235,8 +234,7 @@ def pack_geometry(
     test_joint_material_atlas_mixed_bitwise). Used only when the
     equal-dims 48ch joint doesn't apply; takes precedence over
     ``joint_pack_pad``. Opt-in pending device measurement (the gather is
-    2.25x wider; gathers are row-count-bound in the cheap tier but the
-    chess-scale joint atlas lands in the bytes-sensitive big tier).
+    2.25x wider).
     """
     positions, normals, uvs, colors, vert_instance = [], [], [], [], []
     triangles, tri_material, tri_shadow, tri_centroid = [], [], [], []

@@ -100,18 +100,18 @@ def test_sharded_matches_single_chip(frame_setup):
     assert out.shape == (2, H, W, 3)
     # The RASTER is bitwise under sharding (global-coordinate kernels —
     # the origin add is an exact f32 integer add), so the only remaining
-    # drift is the sky row-chunk program-shape fma class (<= ~2e-5,
-    # docs/BENCHMARKS.md "sky_row_chunks equivalence"); identical frames
+    # drift is the sky row-chunk program-shape fma class (<= ~2e-5);
+    # identical frames
     # must also match each other exactly.
     np.testing.assert_allclose(out[0], single, atol=1e-4)
     np.testing.assert_array_equal(out[0], out[1])
 
 
 def test_sharded_nondivisible_height_matches_single_chip(frame_setup):
-    """The production 1080p shape pads to 17 tile rows — indivisible by any
-    sp — so the sharded path pads rows to sp*TILE_H and crops (VERDICT r3
-    weak #2). Shard a 3-tile-row frame over sp=4 (one device renders ONLY
-    junk off-screen rows) and check the crop against the single-chip frame."""
+    """A padded height that sp does not divide: the sharded path pads rows
+    to sp*TILE_H and crops. Shard a frame whose padded height is not a
+    multiple of 4 tile rows over sp=4 (one device renders ONLY junk
+    off-screen rows) and check the crop against the single-chip frame."""
     scene, geometry, _, config = frame_setup
     import dataclasses
 
@@ -139,11 +139,10 @@ def test_sharded_nondivisible_height_matches_single_chip(frame_setup):
 
 def test_sharded_vma_checked(frame_setup):
     """shard_map(check_vma=True) traces the production 1080p shape end to
-    end (VERDICT r3 #7): raster pallas outs carry vma, loop carries are
-    match_vma'd. The one JAX gap is the listed raster's scalar-prefetch
-    index_map (ref-get discharge is not vma-aware), so this traces with
-    tile_list_capacity=0; a spec/vma error anywhere else in the frame
-    graph fails HERE, at trace time, instead of at runtime on devices.
+    end: raster pallas outs carry vma, loop carries are match_vma'd, and
+    the raster kernel runs with the vma check on. A spec/vma error anywhere
+    in the frame graph fails HERE, at trace time, instead of at runtime on
+    devices.
 
     Uses the ONE-program formulation: the production split path's stage
     boundary declares state/records/shadow maps sp-replicated, which is
@@ -157,13 +156,9 @@ def test_sharded_vma_checked(frame_setup):
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    config = RenderConfig(
-        width=1920, height=1080, n_shadow_maps=4, tile_list_capacity=0
-    )
+    config = RenderConfig(width=1920, height=1080, n_shadow_maps=4)
     params = pack_frame_params(scene, 1920 / 1080)
-    old = sharding_mod.CHECK_VMA
     old_split = sharding_mod.SHARDED_SPLIT_PROGRAMS
-    sharding_mod.CHECK_VMA = True
     sharding_mod.SHARDED_SPLIT_PROGRAMS = False
     try:
         for dp, sp in [(1, 2), (1, 8), (2, 4)]:
@@ -176,7 +171,6 @@ def test_sharded_vma_checked(frame_setup):
             )
             assert out.shape == (dp, 1080, 1920, 3), (dp, sp, out.shape)
     finally:
-        sharding_mod.CHECK_VMA = old
         sharding_mod.SHARDED_SPLIT_PROGRAMS = old_split
 
 
@@ -333,20 +327,21 @@ def test_fused_lighting_sky_matches_staged(frame_setup):
 
 
 def test_sky_chunks_refuses_oversized_configs():
-    """_sky_chunks must never silently run a chunk above the platform
-    compiler's ~0.6 Mpx crash threshold (landmine 10)."""
+    """_sky_chunks refuses an explicit row-chunk count that does not divide
+    the padded height, and auto always divides it."""
     from syzygy_tpu.renderer.frame import _sky_chunks
 
-    assert _sky_chunks(128, 256, 0) == 1  # small: single chunk
-    # 1088x1920 padded frame: auto must pick a dividing count <= 0.6 Mpx
-    n = _sky_chunks(1088, 1920, 0)
-    assert 1088 % n == 0 and (1088 // n) * 1920 <= 600_000
+    assert _sky_chunks(128, 0) == 1  # small: single chunk
+    for h in (128, 1088, 2176):
+        n = _sky_chunks(h, 0)
+        assert n >= 1 and h % n == 0
+    assert _sky_chunks(1088, 2) == 2  # a dividing override holds
+    assert _sky_chunks(1088, 16) == 16
     # explicit override that does not divide -> refuse
     with pytest.raises(ValueError):
-        _sky_chunks(1088, 1920, 3)
-    # explicit override that leaves oversized chunks -> refuse
+        _sky_chunks(1088, 3)
     with pytest.raises(ValueError):
-        _sky_chunks(1088, 1920, 2)
+        _sky_chunks(1088, 5)
 
 
 def test_joint_material_atlas_bitwise(frame_setup):

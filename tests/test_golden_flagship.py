@@ -25,6 +25,9 @@ GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 FLAGSHIP_FRAME = os.path.join(GOLDEN_DIR, "flagship_512x288.npz")
 FLAGSHIP_VIS = os.path.join(GOLDEN_DIR, "flagship_vis_512x288.npz")
 FLAGSHIP_LIT = os.path.join(GOLDEN_DIR, "flagship_lit_512x288.npz")
+# 1920x1080 frame at parity_1080p_config(), checked on the GPU by
+# chip_smoke.py (phase 3)
+FLAGSHIP_1080P = os.path.join(GOLDEN_DIR, "flagship_1080p.npz")
 ATMOSPHERE_LUTS = os.path.join(GOLDEN_DIR, "atmosphere_luts.npz")
 
 W, H = 512, 288

@@ -206,126 +206,191 @@ def test_many_triangles_multi_chunk():
     assert_raster_matches(vis, tris, ref_depth, ref_tri)
 
 
-def test_listed_raster_matches_baseline():
-    from syzygy_tpu.kernels.raster import rasterize_listed
-
-    rng = np.random.default_rng(11)
-    n = 200
+def random_tris(seed, n, spread, width=W, height=H, margin=10):
+    rng = np.random.default_rng(seed)
     tris = []
-    for i in range(n):
-        cx, cy = rng.uniform(10, W - 10), rng.uniform(10, H - 10)
-        pts = rng.uniform(-15, 15, (3, 2)) + [cx, cy]
-        z = rng.uniform(0.1, 0.9)
+    for _ in range(n):
+        cx = rng.uniform(margin, width - margin)
+        cy = rng.uniform(margin, height - margin)
+        pts = rng.uniform(-spread, spread, (3, 2)) + [cx, cy]
+        z = rng.uniform(0.05, 0.95)
         tris.append([[p[0], p[1], z] for p in pts])
-    clip = screen_to_clip(tris, W, H)
+    return tris
+
+
+def setup_of(tris, width=W, height=H, cull=0):
+    clip = screen_to_clip(tris, width, height)
+    n = len(tris)
     triangles = np.arange(n * 3, dtype=np.int32).reshape(n, 3)
-    setup = setup_triangles(clip, triangles, np.ones(n, bool), W, H, 0)
-    vis_a = rasterize(setup, W, H)
-    vis_b, dropped = rasterize_listed(setup, W, H, capacity=16)
-    assert int(dropped) == 0
-    np.testing.assert_array_equal(np.asarray(vis_a.tri), np.asarray(vis_b.tri))
-    np.testing.assert_array_equal(np.asarray(vis_a.depth), np.asarray(vis_b.depth))
-    np.testing.assert_array_equal(np.asarray(vis_a.b0), np.asarray(vis_b.b0))
+    return setup_triangles(
+        clip, triangles, np.ones(n, bool), width, height, cull_keep_sign=cull
+    )
+
+
+def assert_same_visibility(a, b, bary_atol=0.0):
+    np.testing.assert_array_equal(np.asarray(a.tri), np.asarray(b.tri))
+    np.testing.assert_array_equal(np.asarray(a.depth), np.asarray(b.depth))
+    for field in ("b0", "b1"):
+        np.testing.assert_allclose(
+            np.asarray(getattr(a, field)),
+            np.asarray(getattr(b, field)),
+            atol=bary_atol,
+            rtol=0,
+            err_msg=field,
+        )
+
+
+def test_listed_raster_matches_baseline():
+    """The kernel (Pallas interpreter on CPU) against the plain-XLA
+    formulation of the same contract, rasterize_xla: identical visibility
+    decisions; barycentrics within fma-contraction noise."""
+    from syzygy_tpu.kernels.raster import rasterize_xla
+
+    tris = random_tris(11, 200, 15)
+    for dst, src in [(50, 3), (120, 10)]:  # exact duplicates: depth ties
+        tris[dst] = tris[src]
+    setup = setup_of(tris)
+    assert_same_visibility(
+        rasterize(setup, W, H), rasterize_xla(setup, W, H), bary_atol=2e-5
+    )
+    np.testing.assert_array_equal(
+        np.asarray(rasterize(setup, W, H, depth_only=True).depth),
+        np.asarray(rasterize_xla(setup, W, H, depth_only=True).depth),
+    )
 
 
 def test_listed_raster_reports_overflow():
-    from syzygy_tpu.kernels.raster import rasterize_listed
-
-    # 500 triangles all in one tile: chunks-per-tile > capacity 1
-    tris = [[[10.0 + i * 0.01, 10.0, 0.5], [40.0, 12.0, 0.5], [20.0, 40.0, 0.5]]
-            for i in range(500)]
-    clip = screen_to_clip(tris, W, H)
-    triangles = np.arange(500 * 3, dtype=np.int32).reshape(500, 3)
-    setup = setup_triangles(clip, triangles, np.ones(500, bool), W, H, 0)
-    _, dropped = rasterize_listed(setup, W, H, capacity=1)
-    assert int(dropped) > 0
+    """A tile crowded with far more chunks than any fixed per-tile list
+    capacity loses nothing: 500 overlapping triangles in one tile (1,000
+    slots over many chunks), each nearer than the one before, match the
+    numpy reference, so the last one is visible."""
+    tris = [
+        [[10.0 + i * 0.01, 10.0, z], [30.0, 12.0, z], [20.0, 28.0, z]]
+        for i, z in enumerate(np.linspace(0.1, 0.9, 500))
+    ]
+    setup = setup_of(tris)
+    vis = rasterize(setup, W, H)
+    ref_depth, ref_tri = np_reference_raster(np.asarray(tris), W, H)
+    assert_raster_matches(vis, tris, ref_depth, ref_tri)
+    assert np.asarray(vis.tri).max() == 499
 
 
 def test_dispatch_raster_lossless_on_overflow():
-    """An over-capacity scene must render pixel-identical to the full kernel:
-    the production dispatcher falls back instead of silently dropping."""
-    import dataclasses
-
-    from syzygy_tpu.renderer import RenderConfig
-    from syzygy_tpu.renderer.frame import _dispatch_raster
-
+    """The frame's raster call (global origin operand, padded grid) never
+    drops geometry: a crowded block rastered at a row origin equals the
+    same rows of the whole-target raster."""
     rng = np.random.default_rng(3)
-    n = 500  # 1000 clipped slots -> 16 chunks, all overlapping one tile
+    n = 500
     tris = []
     for _ in range(n):
-        cx, cy = rng.uniform(10, 100), rng.uniform(10, 50)
+        cx, cy = rng.uniform(10, 100), rng.uniform(40, 90)
         pts = rng.uniform(-8, 8, (3, 2)) + [cx, cy]
         z = rng.uniform(0.1, 0.9)
         tris.append([[p[0], p[1], z] for p in pts])
-    clip = screen_to_clip(tris, W, H)
-    triangles = np.arange(n * 3, dtype=np.int32).reshape(n, 3)
-    setup = setup_triangles(clip, triangles, np.ones(n, bool), W, H, 0)
+    setup = setup_of(tris)
+    full = rasterize(setup, W, H)
+    ref_depth, ref_tri = np_reference_raster(np.asarray(tris), W, H)
+    assert_raster_matches(full, tris, ref_depth, ref_tri)
+    row0 = 32
+    block = rasterize(setup, W, 64, origin=np.array([row0, 0], np.int32))
+    for field in ("depth", "tri", "b0", "b1"):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(block, field)),
+            np.asarray(getattr(full, field))[row0:row0 + 64],
+            err_msg=field,
+        )
 
-    cfg_tiny = RenderConfig(width=W, height=H, tile_list_capacity=1)
-    cfg_full = RenderConfig(width=W, height=H, tile_list_capacity=0)
-    vis_a = _dispatch_raster(setup, W, H, cfg_tiny)
-    vis_b = _dispatch_raster(setup, W, H, cfg_full)
-    np.testing.assert_array_equal(np.asarray(vis_a.tri), np.asarray(vis_b.tri))
-    np.testing.assert_array_equal(
-        np.asarray(vis_a.depth), np.asarray(vis_b.depth)
-    )
-    np.testing.assert_array_equal(np.asarray(vis_a.b0), np.asarray(vis_b.b0))
 
+@pytest.mark.parametrize("seed", [13, 17])
+def test_vector_chunk_equivalence(seed):
+    """Random triangles over several chunks, with exact duplicates at
+    several indices (equal-z last-wins ties), against the numpy brute
+    force: the kernel and rasterize_xla both match it."""
+    from syzygy_tpu.kernels.raster import rasterize_xla
 
-def test_vector_chunk_equivalence():
-    """raster_vector (the no-serial-loop VPU formulation) vs the serial
-    chunk loop: the DISCRETE visibility decisions (tri id, and depth — the
-    fixture's flat-z triangles make z independent of barycentrics) must be
-    bitwise, including equal-z last-wins ties, multi-chunk scenes, and the
-    listed kernel. Barycentrics are allowed fma-contraction noise: the
-    per-pixel expressions are textually identical, but XLA contracts
-    a0 + be0*px + g0*py into fma differently across the two program
-    shapes, and the terms cancel (measured <= ~8e-6 absolute — the same
-    equivalence class as sky_row_chunks' documented <= 2e-5)."""
-    from syzygy_tpu.kernels.raster import rasterize_listed
-
-    rng = np.random.default_rng(13)
-    n = 300
-    tris = []
-    for i in range(n):
-        cx, cy = rng.uniform(10, W - 10), rng.uniform(10, H - 10)
-        pts = rng.uniform(-14, 14, (3, 2)) + [cx, cy]
-        z = rng.uniform(0.05, 0.95)
-        tris.append([[p[0], p[1], z] for p in pts])
-    # exact-duplicate triangles at several indices: equal-z tie coverage
+    tris = random_tris(seed, 300, 14)
     for src, dst in [(3, 77), (10, 200), (150, 299)]:
         tris[dst] = tris[src]
-    clip = screen_to_clip(tris, W, H)
-    triangles = np.arange(n * 3, dtype=np.int32).reshape(n, 3)
-    setup = setup_triangles(clip, triangles, np.ones(n, bool), W, H, 0)
+    setup = setup_of(tris)
+    ref_depth, ref_tri = np_reference_raster(np.asarray(tris), W, H)
+    assert_raster_matches(rasterize(setup, W, H), tris, ref_depth, ref_tri)
+    assert_raster_matches(rasterize_xla(setup, W, H), tris, ref_depth, ref_tri)
 
-    def check(xa, xb, label):
-        np.testing.assert_array_equal(
-            np.asarray(xa.tri), np.asarray(xb.tri), err_msg=label + " tri"
-        )
-        np.testing.assert_array_equal(
-            np.asarray(xa.depth), np.asarray(xb.depth),
-            err_msg=label + " depth",
-        )
-        for field in ("b0", "b1"):
-            np.testing.assert_allclose(
-                np.asarray(getattr(xa, field)),
-                np.asarray(getattr(xb, field)),
-                atol=2e-5, rtol=0, err_msg=label + " " + field,
-            )
 
-    a = rasterize(setup, W, H)
-    b = rasterize(setup, W, H, vector=True)
-    check(a, b, "full")
+@pytest.mark.parametrize("width,height", [(100, 50), (33, 65), (256, 40)])
+def test_non_tile_multiple_target(width, height):
+    """Targets that are not tile multiples: the wrapper pads the grid and
+    crops, so the result is the matching window of a larger raster and
+    agrees with the numpy reference."""
+    tris = random_tris(5, 60, 20, width, height, margin=0)
+    setup = setup_of(tris, width, height)
+    vis = rasterize(setup, width, height)
+    assert vis.depth.shape == (height, width)
+    assert vis.tri.shape == (height, width)
+    ref_depth, ref_tri = np_reference_raster(np.asarray(tris), width, height)
+    assert_raster_matches(vis, tris, ref_depth, ref_tri)
+    big = rasterize(setup, 256, 128)
+    np.testing.assert_array_equal(
+        np.asarray(vis.tri), np.asarray(big.tri)[:height, :width]
+    )
+    depth = rasterize(setup, width, height, depth_only=True).depth
+    assert depth.shape == (height, width)
+    np.testing.assert_array_equal(np.asarray(depth), np.asarray(vis.depth))
 
-    da = rasterize(setup, W, H, depth_only=True)
-    db = rasterize(setup, W, H, depth_only=True, vector=True)
-    np.testing.assert_array_equal(np.asarray(da.depth), np.asarray(db.depth))
 
-    la, dropped_a = rasterize_listed(setup, W, H, capacity=16)
-    lb, dropped_b = rasterize_listed(setup, W, H, capacity=16, vector=True)
-    assert int(dropped_a) == int(dropped_b) == 0
-    check(la, lb, "listed")
+def test_setup_pads_to_whole_chunks():
+    """T2 pads to a CHUNK multiple with invalid, empty-bbox slots, and the
+    chunk bboxes are the unions of their slots' bboxes."""
+    from syzygy_tpu.kernels.raster import CHUNK
+
+    tris = random_tris(2, 37, 10)
+    setup = setup_of(tris)
+    t2 = setup.coeffs.shape[0]
+    assert t2 % CHUNK == 0 and t2 >= 2 * 37
+    assert setup.coeffs.shape[1] == 16
+    coeffs = np.asarray(setup.coeffs)
+    assert (coeffs[2 * 37:, 9] == 0).all()
+    assert np.isinf(coeffs[2 * 37:, 10]).all()
+    cb = np.asarray(setup.chunk_bbox)
+    assert cb.shape == (t2 // CHUNK, 4)
+    per = coeffs[:, 10:14].reshape(-1, CHUNK, 4)
+    np.testing.assert_array_equal(cb[:, 0], per[..., 0].min(axis=1))
+    np.testing.assert_array_equal(cb[:, 1], per[..., 1].max(axis=1))
+
+
+def _lowered_text(fn, *args, platform):
+    import jax
+
+    return jax.jit(fn).trace(*args).lower(lowering_platforms=(platform,)).as_text()
+
+
+@pytest.mark.parametrize("depth_only", [False, True])
+def test_raster_lowers_to_triton_for_cuda(depth_only):
+    """Lowered for CUDA (no card needed), the raster is the Triton kernel,
+    not the interpreter."""
+    setup = setup_of(random_tris(1, 20, 10))
+    text = _lowered_text(
+        lambda s: rasterize(s, W, H, depth_only=depth_only), setup,
+        platform="cuda",
+    )
+    assert text.count("__gpu$xla.gpu.triton") == 1
+
+
+def test_raster_unsupported_platform_raises():
+    """No silent fallback: a platform with no raster route fails to lower."""
+    setup = setup_of(random_tris(1, 20, 10))
+    with pytest.raises(Exception, match="platform_index|rocm"):
+        _lowered_text(lambda s: rasterize(s, W, H), setup, platform="rocm")
+
+
+def test_geometry_program_lowers_to_triton_for_cuda():
+    """The whole frame program of ``__graft_entry__.entry()`` lowers for CUDA
+    with the camera and shadow rasters as Triton kernels."""
+    import __graft_entry__ as ge
+
+    fn, args = ge.entry()
+    text = _lowered_text(fn, *args, platform="cuda")
+    assert text.count("__gpu$xla.gpu.triton") >= 2
 
 
 def test_setup_and_records_sharded_bitwise():
@@ -393,7 +458,7 @@ def test_setup_and_records_sharded_bitwise():
             check_vma=False,
         )()
         for name, r, o in zip(
-            ("coeffs", "orig_tri", "corner_bary", "corner_w", "chunk_mask",
+            ("coeffs", "orig_tri", "corner_bary", "corner_w", "chunk_bbox",
              "records"),
             ref,
             out,

@@ -1,4 +1,9 @@
-"""Regenerate golden frames after intentional rendering changes."""
+"""Regenerate golden frames after intentional rendering changes (on the
+CPU): ``python tools/regen_goldens.py``.
+
+``python tools/regen_goldens.py 1080p`` rewrites only the 1920x1080 chess
+golden that ``chip_smoke.py`` compares the GPU frame with (a full-size CPU
+render: run it on a machine with memory to spare)."""
 
 import os
 import sys
@@ -13,20 +18,51 @@ import numpy as np
 
 
 def main():
+    only_1080p = sys.argv[1:] == ["1080p"]
     sys.path.insert(
         0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests")
     )
-    import dataclasses
-
     from test_golden import GOLDEN, golden_scene_setup
     from test_golden_flagship import (
         ATMOSPHERE_LUTS,
+        FLAGSHIP_1080P,
         FLAGSHIP_FRAME,
         FLAGSHIP_LIT,
         FLAGSHIP_VIS,
         flagship_setup,
         save_u16,
     )
+
+    from syzygy_tpu.renderer import render_frame
+    from syzygy_tpu.scene import pack_frame_params, pack_geometry
+
+    if not only_1080p:
+        regen_small(
+            GOLDEN, golden_scene_setup, ATMOSPHERE_LUTS, FLAGSHIP_FRAME,
+            FLAGSHIP_LIT, FLAGSHIP_VIS, flagship_setup, save_u16,
+        )
+
+    # --- 1080p flagship (the device parity golden, chip_smoke.py) -----------
+    from syzygy_tpu.app.scenes import framed_scene, parity_1080p_config
+
+    config = parity_1080p_config()
+    scene, lib = framed_scene("flagship")
+    img = np.asarray(
+        render_frame(
+            pack_geometry(scene, lib),
+            pack_frame_params(scene, config.width / config.height),
+            config,
+        )
+    )
+    save_u16(FLAGSHIP_1080P, img)
+    print(f"wrote {FLAGSHIP_1080P} (mean {img.mean():.4f})", flush=True)
+
+
+def regen_small(
+    GOLDEN, golden_scene_setup, ATMOSPHERE_LUTS, FLAGSHIP_FRAME, FLAGSHIP_LIT,
+    FLAGSHIP_VIS, flagship_setup, save_u16,
+):
+    import dataclasses
 
     from syzygy_tpu.renderer import render_frame
     from syzygy_tpu.renderer.frame import _stage_geometry
